@@ -1,6 +1,6 @@
-"""fastqueeze_tpu — a TPU-native FASTQ compression framework.
+"""fastqueeze_tpu — an accelerator-native FASTQ compression framework in JAX.
 
-A ground-up JAX/XLA/Pallas re-design with the capabilities of the reference
+A ground-up JAX/XLA re-design with the capabilities of the reference
 SeqArc v1.6 compressor (see SURVEY.md): block-parallel FASTQ compression with
 adaptive context models (sequence / quality / name / length / alignment-info
 streams), optional reference-based alignment, lossy quality transform, and a
@@ -14,7 +14,7 @@ range coding in C++ — SURVEY.md §2.1):
   the model state produced by waves ``< t``, then the model tables are updated
   with the whole wave at once (a batched scatter-add).  Encode and decode
   perform bit-identical integer model walks, so the coder stays adaptive while
-  being fully vectorized on the VPU.
+  being fully vectorized over lanes.
 * Alignment is batched seed-lookup + gapless XOR/popcount extension over a
   2-bit packed reference, instead of a per-read scalar loop.
 * Scale-out is block data-parallelism over a ``jax.sharding.Mesh`` instead of
@@ -26,30 +26,38 @@ __version__ = "0.1.0"
 import os as _os
 
 
+_REPO_DIR = _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)))
+
+
+def compile_cache_dir(environ=_os.environ):
+    """Directory of the persistent XLA compilation cache, or None when the
+    cache stays off.
+
+    The wave coders compile once per (model, T, L) bucket; the cache lets a
+    later process start warm.  JAX_COMPILATION_CACHE_DIR wins when set;
+    otherwise a fixed directory inside the checkout (never a temp or home
+    path: the directory is part of what makes a later run hit).  CPU-only
+    runs (tests, --cpu) never cache: XLA:CPU cache entries are AOT machine
+    code stamped with the compiling host's CPU features, and loading one whose
+    feature set mismatches the running host can SIGILL/SIGSEGV instead of
+    falling back to a recompile."""
+    if environ.get("FASTQUEEZE_NO_COMPILE_CACHE"):
+        return None
+    if environ.get("JAX_PLATFORMS", "").strip().lower() == "cpu":
+        return None
+    return (environ.get("JAX_COMPILATION_CACHE_DIR")
+            or _os.path.join(_REPO_DIR, ".jax_cache"))
+
+
 def _enable_compile_cache() -> None:
-    """Persistent XLA compilation cache: the wave-coder jits once per
-    (model, T, L) bucket; caching makes every later process start warm
-    (first-ever compile of a shape is 10-40 s on TPU)."""
-    if _os.environ.get("FASTQUEEZE_NO_COMPILE_CACHE"):
-        return
-    # CPU-only runs (tests, dryrun_multichip) must NOT use the persistent
-    # cache: XLA:CPU cache payloads are AOT-compiled machine code stamped
-    # with the builder's CPU features, and loading an entry whose feature
-    # set mismatches the running host (observed on this box even across
-    # processes) can SIGILL/SIGSEGV/SIGABRT instead of falling back to a
-    # recompile.  TPU executables have no host-ISA dependence, so the
-    # warm-start cache stays on for the real backend.
-    if _os.environ.get("JAX_PLATFORMS", "").strip().lower() == "cpu":
-        return
     import jax
-    cache_dir = _os.environ.get(
-        "JAX_COMPILATION_CACHE_DIR",
-        _os.path.join(_os.path.expanduser("~"), ".cache", "fastqueeze_jax"))
-    try:
+    cache_dir = compile_cache_dir()
+    if cache_dir is None:
+        jax.config.update("jax_enable_compilation_cache", False)
+        return
+    if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
         jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:
-        pass
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 
 _enable_compile_cache()

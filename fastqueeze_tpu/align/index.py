@@ -5,7 +5,7 @@ Capability parity with the reference's HashRefIndex32/64 + buildRefIndex
 seednum[4^k] counts + seedind prefix offsets + seedpos positions + packed
 seqint, written to ref.fa.hash, fingerprinted by ref.fa.md5).
 
-TPU-first redesign (SURVEY.md §7 hard part d): the dense 4^k table
+Accelerator-first redesign (SURVEY.md §7 hard part d): the dense 4^k table
 (2.1 GB on disk at k=14 in the reference) is replaced by a **counted-CSR
 over present k-mers only** — sorted unique keys + prefix offsets +
 positions.  Lookup is a vectorized binary search (jnp.searchsorted) on

@@ -1,15 +1,14 @@
-"""Sharded-index aligner for references past the single-chip limit.
+"""Sharded-index aligner for references past the single-device limit.
 
 ``Aligner`` (align/hash.py) refuses indexes with >= 2^31 positions
 (human-scale whole genomes: GRCh38 is ~3.1 Gbp) because its device and
 host tiers carry int32 coordinates.  This facade serves exactly that
 regime: the counted-CSR index is split into equal-key-count range shards
 over the mesh's devices (parallel/mesh.shard_ref_index, u32 coordinates
-— up to 4 Gbp, validated at 2.2 Gbp incl. positions above 2^31 by
-tools/bigref_check.py) and every batch runs the one-pass multi-seed
-gapless kernel with pmin/pmax lookup collectives
-(align_blocks_index_sharded — SURVEY.md §2.3's "reference index sharded
-across the pod slice" north star).
+— up to 4 Gbp; tools/bigref_check.py checks positions above 2^31) and
+every batch runs the one-pass multi-seed gapless kernel with pmin/pmax
+lookup collectives (align_blocks_index_sharded — SURVEY.md §2.3's
+"reference index sharded across devices" north star).
 
 Capability envelope vs the single-chip Aligner: gapless only (no indel
 rescue tier — such reads stay entropy-coded) and no PE window rescue;

@@ -1,6 +1,6 @@
 """Lane layout: ragged per-read symbol sequences <-> fixed (T, L) wave grids.
 
-The TPU engine codes ``L`` interleaved rANS lanes in lockstep; read ``r`` is
+The wave engine codes ``L`` interleaved rANS lanes in lockstep; read ``r`` is
 assigned to lane ``r % L`` (round-robin keeps lanes balanced for i.i.d. read
 lengths), and a lane's symbol sequence is the concatenation of its reads'
 symbols.  ``T`` = longest lane.  The layout is a pure function of the

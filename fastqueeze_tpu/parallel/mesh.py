@@ -1,7 +1,7 @@
-"""Multi-chip scale-out over a jax.sharding.Mesh.
+"""Multi-device scale-out over a jax.sharding.Mesh.
 
 The reference scales with pthreads over 50 MB blocks on one host
-(SURVEY.md §2.3).  The TPU-native mapping:
+(SURVEY.md §2.3).  The accelerator-native mapping:
 
 * **block axis (data parallel)** — blocks (or block shards of the training
   prefix) are distributed across devices; each device runs the full
@@ -14,11 +14,14 @@ The reference scales with pthreads over 50 MB blocks on one host
   keeps only its table shard.
 
 Everything here is shard_map over a Mesh with explicit PartitionSpecs, so
-XLA inserts the ICI collectives.
+XLA inserts the collectives (NVLink between the GPUs of one host).  The
+mesh is shaped by the algorithm only ('block' x 'ctx'), since those GPUs
+are linked all to all.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import jax
@@ -131,7 +134,7 @@ def align_blocks_sharded(mesh: Mesh, cfg, keys, offsets, positions, packed,
                          l1, ref_len, codes, dege, lengths):
     """Data-parallel alignment over the mesh: the index arrays are
     replicated across devices (the reference's POSIX-shm index sharing,
-    SURVEY.md §2.3, mapped to a pod slice); read batches shard over the
+    SURVEY.md §2.3, mapped to the devices); read batches shard over the
     'block' axis.  codes/dege: (B, R, Lp) grids, lengths: (B, R)."""
     from fastqueeze_tpu.align import hash as H
 
@@ -155,7 +158,7 @@ def align_blocks_sharded(mesh: Mesh, cfg, keys, offsets, positions, packed,
 def shard_ref_index(idx, n_shards: int) -> Dict[str, np.ndarray]:
     """Partition a RefIndex CSR into equal-key-count range shards.
 
-    For references whose index exceeds one chip's HBM (>2 Gbp: the
+    For references past one device's int32 coordinates (>2 Gbp; the
     positions array alone is 8+ GB) the CSR is split by key range; shard
     arrays are padded to a common length with an impossible sentinel key
     (u32 max exceeds any valid k-mer / hi-lo pair component) so the
@@ -205,7 +208,7 @@ def align_blocks_index_sharded(mesh: Mesh, params: CodecParams, sh: Dict,
                                n_cand: Optional[int] = None):
     """Alignment with the k-mer index sharded over the 'ctx' mesh axis and
     reads data-parallel over 'block' (SURVEY.md §2.3 north star: reference
-    index sharded across the pod slice).
+    index sharded across the devices).
 
     codes/dege: (R, Lp) grids; R must divide by the block axis.  Lookups
     run as local binary searches combined with pmin/pmax over 'ctx';
@@ -225,26 +228,35 @@ def align_blocks_index_sharded(mesh: Mesh, params: CodecParams, sh: Dict,
         excl_bp=excl_bp, wide=sh["k"] > 15,
         search_steps=max(1, math.ceil(math.log2(kp + 1))),
         shard_axis="ctx")
-    ref_len = jnp.uint32(sh["ref_len"])
-    dummy_l1 = jnp.zeros(1, jnp.int32)
+    # the index shards go to the devices once per mesh and the program is
+    # built once per (mesh, cfg, ref_len): per batch only reads move
+    dev = sh.setdefault("_dev", {})
+    if mesh not in dev:
+        ctx, rep = NamedSharding(mesh, P("ctx")), NamedSharding(mesh, P())
+        dev[mesh] = tuple(jax.device_put(sh[k], ctx) for k in (
+            "keys_hi", "keys_lo", "offsets", "positions")) + (
+            jax.device_put(sh["packed"], rep),)
+    return _index_sharded_fn(mesh, cfg, int(sh["ref_len"]))(
+        *dev[mesh], jnp.asarray(codes), jnp.asarray(dege),
+        jnp.asarray(lengths.astype(np.int32)))
+
+
+@functools.lru_cache(maxsize=None)
+def _index_sharded_fn(mesh: Mesh, cfg, ref_len: int):
+    from fastqueeze_tpu.align import hash as H
 
     def local(kh, kl, off, pos, pk, c, d, ln):
         return H._align_batch.__wrapped__(
-            cfg, (kh[0], kl[0]), off[0], pos[0], pk, dummy_l1, ref_len,
-            c, d, ln)
+            cfg, (kh[0], kl[0]), off[0], pos[0], pk,
+            jnp.zeros(1, jnp.int32), jnp.uint32(ref_len), c, d, ln)
 
-    fn = shard_map(
+    return jax.jit(shard_map(
         local, mesh=mesh,
         in_specs=(P("ctx"), P("ctx"), P("ctx"), P("ctx"), P(),
                   P("block"), P("block"), P("block")),
         out_specs=(P("block"), P("block"), P("block"), P("block")),
         check_vma=False,
-    )
-    return jax.jit(fn)(
-        jnp.asarray(sh["keys_hi"]), jnp.asarray(sh["keys_lo"]),
-        jnp.asarray(sh["offsets"]), jnp.asarray(sh["positions"]),
-        jnp.asarray(sh["packed"]), jnp.asarray(codes),
-        jnp.asarray(dege), jnp.asarray(lengths.astype(np.int32)))
+    ))
 
 
 def decode_blocks_frozen_sharded(mesh: Mesh, model: CtxModel,
@@ -261,7 +273,7 @@ def decode_blocks_frozen_sharded(mesh: Mesh, model: CtxModel,
     cumulative-frequency search locally and non-owners contribute zeros, so
     one ``psum`` over 'ctx' per wave yields the global (sym, start, freq)
     packed as a single (3, L) vector — collective bytes per wave are tiny
-    (~lanes * 12 B) and ride ICI.  The rANS arithmetic then advances
+    (~lanes * 12 B).  The rANS arithmetic then advances
     replicated.  Produces bit-identical symbols to the replicated
     ``engine._decode_frozen`` (tests/test_mesh.py asserts equality).
 

@@ -194,9 +194,8 @@ def _mk_aligner(p: CodecParams, codes: np.ndarray):
     ref = RefSeq(codes=codes, amb_mask=np.zeros(len(codes), bool),
                  names=["self"], bounds=np.array([0, len(codes)], np.int64),
                  md5="")
-    # force the host-native tiers even under an explicit --mesh: the
-    # per-wave index rebuilds would otherwise re-upload device tables
-    # every wave (results are bit-identical either way)
+    # the self-ref pass aligns with the native fq_selfref_align over the
+    # host arrays only; mesh_n=0 keeps per-device index replicas out
     pa = dataclasses.replace(p, mesh_n=0)
     return Aligner(build_from_ref(ref, pa), pa)
 

@@ -2,8 +2,8 @@
 //
 // Capability parity with the reference's reader/parser machinery
 // (SURVEY.md C5 srcfile:SeqArcRead.cpp cultbuf record-boundary cutting; C7
-// getBlockRead record parsing), which is C++ in the reference.  The TPU
-// rebuild keeps the device compute in JAX/Pallas and this host runtime in
+// getBlockRead record parsing), which is C++ in the reference.  The
+// rebuild keeps the device compute in JAX and this host runtime in
 // C++: one pass over the raw block finds every line span, validates the
 // 4-line record structure, and returns the spans as int64 arrays that the
 // Python layer turns into SoA numpy views without re-scanning.

@@ -2,11 +2,11 @@
 //
 // Role parity with the reference's per-symbol coder (SURVEY.md §2.1,
 // srcfile:EncapFqzComp.cpp: 64-bit-low range coder + SIMPLE_MODEL<N>
-// adaptive frequency tables).  In the TPU rebuild the *large* streams
+// adaptive frequency tables).  In the rebuild the *large* streams
 // (sequence / quality) are coded by the wave-synchronized interleaved rANS
 // on device; the many *small* per-block streams (flags, lengths, ID bytes,
-// mismatch metadata) would each pay a ~36 ms device round-trip, so they are
-// coded here instead: a classic carry-propagating range coder (LZMA-style
+// mismatch metadata) are coded here instead (CodecParams.host_stream_max
+// picks the coder): a classic carry-propagating range coder (LZMA-style
 // shift-low) with adaptive per-context symbol counts.
 //
 // The bitstream is its own format (marker 0x02 at the Python layer); a pure

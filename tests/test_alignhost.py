@@ -264,3 +264,49 @@ def test_indel_tier_mirror_matches_device(tmp_path):
     np.testing.assert_array_equal(rh.gap_len2[m], rd.gap_len2[m])
     np.testing.assert_array_equal(rh.is_rev[m], rd.is_rev[m])
     np.testing.assert_array_equal(rh.mis_mask[m], rd.mis_mask[m])
+
+
+def test_no_match_seed_at_index_end_stays_in_bounds():
+    """A read none of whose seeds is indexed scans a junk CSR slice
+    clamped to the END of the positions array; the candidate prefetch
+    must honour the same clamp.  positions ends right before a PROT_NONE
+    page here, so a read past its end faults instead of passing
+    silently."""
+    import ctypes
+    import mmap
+
+    from fastqueeze_tpu.align.hash import Aligner
+    from fastqueeze_tpu.align.ref import RefSeq
+    if native.get_lib() is None:
+        pytest.skip("native library unavailable")
+    rng = np.random.default_rng(7)
+    # no T anywhere except one TTTTTTTTTTTTTG: the largest indexed key,
+    # occurring once, so an all-T read's seeds land past the last key
+    codes = rng.integers(0, 3, 4096).astype(np.uint8)
+    codes[1000:1014] = [3] * 13 + [2]
+    p = CodecParams(seed_len=14)
+    ref = RefSeq(codes=codes, amb_mask=np.zeros(len(codes), bool),
+                 names=["c"], bounds=np.array([0, len(codes)]), md5="")
+    al = Aligner(build_from_ref(ref, p), p)
+    pos = al._h_positions
+    page = mmap.PAGESIZE
+    nb = pos.nbytes
+    body = -(-nb // page) * page
+    buf = mmap.mmap(-1, body + page)
+    addr = ctypes.addressof(ctypes.c_char.from_buffer(buf))
+    libc = ctypes.CDLL(None)
+    assert libc.mprotect(ctypes.c_void_p(addr + body), page, 0) == 0
+    try:
+        guarded = np.frombuffer(buf, np.int32, len(pos), body - nb)
+        guarded[:] = pos
+        reads = np.full(100, 3, np.uint8)
+        out = native.align_batch(
+            al._h_keys, al._h_offsets, guarded, al._h_packed, al._h_l1,
+            al._l1_shift, al._search_steps, al.ref_len, reads,
+            np.zeros(100, bool), np.zeros(1, np.int64),
+            np.array([100]), 128, 14, p.seed_stride, 64, p.max_mis, 1, 0,
+            16, 0, 0)
+        assert not out[0][0]
+        del guarded
+    finally:
+        libc.mprotect(ctypes.c_void_p(addr + body), page, 3)

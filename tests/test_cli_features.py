@@ -98,10 +98,10 @@ def test_cli_list_and_config(tmp_path, monkeypatch):
     assert (tmp_path / "back.fastq").read_bytes() == src.read_bytes()
 
 
-def test_cli_shm_and_orderbin_flags(tmp_path):
+def test_cli_shm_and_orderbin_flags(tmp_path, bundled_pair):
     """-s (mmap-shared index) and -n (reference parity no-op) round-trip."""
     from fastqueeze_tpu.cli import main
-    raw = open("/root/reference/test/ERR2755197_test_1.fq", "rb").read()
+    raw = open(bundled_pair[0], "rb").read()
     lines = raw.split(b"\n")
     src = tmp_path / "in.fq"
     src.write_bytes(b"\n".join(lines[:4 * 400]) + b"\n")

@@ -168,8 +168,6 @@ def test_dedup_off_param_respected(tmp_path):
 def test_dedup_aligned_roundtrip(tmp_path):
     # mapped reads and duplicate reads coexist; a duplicate read is coded
     # as a duplicate even when it also maps
-    import sys
-    sys.path.insert(0, "/root/repo/tools")
     from maprate import synthetic_ref
 
     from fastqueeze_tpu.io.fastq import parse_block

@@ -1,6 +1,7 @@
 """Golden round-trips on the bundled reference data + edge inputs
 (SURVEY.md §4: the reference's implicit test surface is the ERR2755197
-pair; property tests cover the edges)."""
+pair, stood in for by the seeded ``bundled_pair`` fixture; property tests
+cover the edges)."""
 
 import io
 import os
@@ -14,8 +15,6 @@ from fastqueeze_tpu.pipeline.driver import compress_se, decompress
 from fastqueeze_tpu.pipeline.pe import compress_pe
 
 SMALL = dict(slevel=0, lanes_min=16, lanes_max=64, lane_target_symbols=512)
-REF1 = "/root/reference/test/ERR2755197_test_1.fq"
-REF2 = "/root/reference/test/ERR2755197_test_2.fq"
 
 
 def _slice_reads(path, n):
@@ -23,8 +22,8 @@ def _slice_reads(path, n):
     return b"\n".join(lines[:4 * n]) + b"\n"
 
 
-def test_golden_se_bundled_pair(tmp_path):
-    raw = _slice_reads(REF1, 1500)
+def test_golden_se_bundled_pair(tmp_path, bundled_pair):
+    raw = _slice_reads(bundled_pair[0], 1500)
     src = tmp_path / "g1.fq"
     src.write_bytes(raw)
     p = CodecParams(**SMALL)
@@ -35,9 +34,9 @@ def test_golden_se_bundled_pair(tmp_path):
     assert open(outs[0], "rb").read() == raw
 
 
-def test_golden_pe_bundled_pair(tmp_path):
-    raw1 = _slice_reads(REF1, 800)
-    raw2 = _slice_reads(REF2, 800)
+def test_golden_pe_bundled_pair(tmp_path, bundled_pair):
+    raw1 = _slice_reads(bundled_pair[0], 800)
+    raw2 = _slice_reads(bundled_pair[1], 800)
     f1, f2 = tmp_path / "p1.fq", tmp_path / "p2.fq"
     f1.write_bytes(raw1)
     f2.write_bytes(raw2)
@@ -71,8 +70,8 @@ def test_single_read(tmp_path):
     assert open(outs[0], "rb").read() == raw
 
 
-def test_pipeout_se(tmp_path, capfdbinary):
-    raw = _slice_reads(REF1, 200)
+def test_pipeout_se(tmp_path, capfdbinary, bundled_pair):
+    raw = _slice_reads(bundled_pair[0], 200)
     src = tmp_path / "p.fq"
     src.write_bytes(raw)
     p = CodecParams(**SMALL)
@@ -84,9 +83,9 @@ def test_pipeout_se(tmp_path, capfdbinary):
     assert captured.out == raw
 
 
-def test_pipeout_pe_interleaved(tmp_path, capfdbinary):
-    raw1 = _slice_reads(REF1, 100)
-    raw2 = _slice_reads(REF2, 100)
+def test_pipeout_pe_interleaved(tmp_path, capfdbinary, bundled_pair):
+    raw1 = _slice_reads(bundled_pair[0], 100)
+    raw2 = _slice_reads(bundled_pair[1], 100)
     f1, f2 = tmp_path / "i1.fq", tmp_path / "i2.fq"
     f1.write_bytes(raw1)
     f2.write_bytes(raw2)

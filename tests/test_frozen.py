@@ -92,12 +92,12 @@ def test_se_roundtrip_with_frozen_model(tmp_path):
     assert open(outs[0], "rb").read() == raw_big
 
 
-def test_frozen_shrinks_block_payloads_on_real_data(tmp_path):
+def test_frozen_shrinks_block_payloads_on_real_data(tmp_path, bundled_pair):
     """On realistic (repetitive) data every block must get smaller when it
     starts from the frozen tables (the blob itself amortizes only at the
     reference's multi-GB usemodel scale, SURVEY.md §2.1)."""
     from fastqueeze_tpu.container.arcfile import ArcReader
-    raw1 = open("/root/reference/test/ERR2755197_test_1.fq", "rb").read()
+    raw1 = open(bundled_pair[0], "rb").read()
     lines = raw1.split(b"\n")
     raw = (b"\n".join(lines[:4 * 3000]) + b"\n") * 4
     src = tmp_path / "in.fq"

@@ -1,4 +1,4 @@
-"""Fused device aligner (VERDICT r4 #4): the two-round-trip fused flow
+"""Fused device aligner: the two-host-sync fused flow
 must make BIT-IDENTICAL mapping decisions to the classic per-tier chain
 and to the host-native mirror — asserted per-read and at archive-byte
 level (the -t/--mesh payload-identity invariant extends to execution

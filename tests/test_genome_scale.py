@@ -1,4 +1,4 @@
-"""Genome-scale aligned validation (VERDICT r4 #1) at unit-test size.
+"""Genome-scale aligned validation at unit-test size.
 
 The bench (bench.py "genome" block) runs the 100 Mbp fixture; these tests
 run the SAME generator and the same code paths at ~1.5 Mbp so the suite

@@ -1,5 +1,5 @@
 """Long-read aligned tier: reads > align_max_len are anchor-mapped in
-longread_chunk pieces (VERDICT r4 #9 stretch; no reference equivalent —
+longread_chunk pieces (no reference equivalent —
 SeqArc codes long reads entropy-only).  HiFi-like fixtures: low error,
 mostly substitutions."""
 

@@ -254,7 +254,7 @@ def test_sharded_block_coding_matches_single_device():
 
 
 def test_ctx_shard_gate_production_decode(tmp_path, monkeypatch):
-    """VERDICT r3 #4: the ctx-sharded frozen decoder runs IN PRODUCTION —
+    """The ctx-sharded frozen decoder runs IN PRODUCTION —
     driver.decompress, gated on (mesh active AND frozen qual table past
     the replication threshold) — and round-trips a real archive with a
     forced deep hashed qctx chain.  The threshold is monkeypatched down
@@ -289,7 +289,7 @@ def test_ctx_shard_gate_production_decode(tmp_path, monkeypatch):
 
 @pytest.mark.slow
 def test_mesh_e2e_realistic_scale(tmp_path):
-    """VERDICT r3 #5: a NON-TOY mesh archive — 50k reads through a trained
+    """A NON-TOY mesh archive — 50k reads through a trained
     deep hashed-qctx frozen model — with --mesh 8 payloads byte-identical
     to -t 1 and a bit-exact round-trip through the mesh decoder."""
     from fastqueeze_tpu.config import CodecParams

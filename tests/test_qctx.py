@@ -1,7 +1,7 @@
 """Rank-chain quality-context scheme (CodecParams.qctx_*): train-time
 selection, native/numpy histogram equivalence, device/host context
 equivalence, and archive round-trips.  No reference equivalent — this is
-a TPU-engine scheme enabled by dense rank coding (models/base.py
+a wave-engine scheme enabled by dense rank coding (models/base.py
 QualModel docstring)."""
 
 import numpy as np

@@ -1,8 +1,8 @@
-"""ShardedAligner production path: references past the single-chip int32
+"""ShardedAligner production path: references past the single-device int32
 limit compress through the index-sharded mesh kernel (SURVEY.md §2.3
-"reference index sharded across the pod").  Exercised at toy scale by
-monkeypatching SHARD_MIN_POSITIONS (the real >2^31 regime is validated
-by tools/bigref_check.py → tools/bigref_r5.json)."""
+"reference index sharded across devices").  Exercised at toy scale by
+monkeypatching SHARD_MIN_POSITIONS (the real >2^31 regime is checked by
+tools/bigref_check.py)."""
 
 import hashlib
 import os

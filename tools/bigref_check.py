@@ -1,10 +1,9 @@
 """Beyond-int32 reference validation: a 2.2 Gbp reference (more windows
-than 2^31 — the human-genome scale the single-chip aligner refuses)
+than 2^31 — the human-genome scale the single-device aligner refuses)
 through the sharded-index path, checking COORDINATE EXACTNESS for reads
 sampled above 2^31.
 
-VERDICT r4 weak #1 called the u32/u64 coordinate tiers untested at a
-size where they engage; the unit test (tests/test_genome_scale.py)
+The u32/u64 coordinate tiers only engage at this size; the unit test (tests/test_genome_scale.py)
 drives the dtype plumbing with a faked length.  This runs the real
 thing: native CSR build over 2.2e9 windows (u32 positions), 4-way key
 range shards (parallel/mesh.shard_ref_index), and the index-sharded
@@ -12,7 +11,7 @@ alignment kernel over an 8-virtual-device mesh.  Error-free reads from
 a random genome map uniquely, so the check is exact: every read sampled
 at position p (including p > 2^31) must map at exactly p.
 
-Prints one JSON line; ~25 min / ~70 GB RSS on this box.
+Prints one JSON line; about 25 min and 70 GB of host RSS on one CPU core.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """Structured synthetic genome + read-set generator for genome-scale
-aligned validation (VERDICT r4 #1).
+aligned validation, and a stand-in for the reference's bundled test pair.
 
 The bundled test reference is a 500 kb concatenation of read sequences —
 trivially mappable.  Real genomes are hard for seed-and-extend aligners
@@ -12,8 +12,8 @@ N-gaps, and samples reads with a quality-correlated error process
 strands, and a contamination fraction that must stay unmapped.
 
 Everything is deterministic in the seed, vectorized numpy, and sized by
-arguments, so the same module drives both the 2 Mbp unit tests and the
-100 Mbp bench fixture (bench.py "genome" block).
+arguments, so the same module drives the 2 Mbp unit tests, the 100 Mbp
+bench fixture (bench.py "genome" block) and chip_smoke.py's inputs.
 
 Reference behavior being validated against: SeqArc-1.6 HASH tier
 (HashRefIndex64::initMemory @0x41e8d0, Seedlen 14) and -q/BWA tier
@@ -207,6 +207,83 @@ def write_fastq(seqs: np.ndarray, quals: np.ndarray, path: str,
         fh.write(b"".join(buf))
 
 
+# HiSeq X-style binned qualities (Illumina 1.8+: '#', '-', '7', '<', 'A',
+# 'F', 'J'), drawn from a distribution that degrades along the read
+_PAIR_QBINS = np.array([2, 12, 22, 27, 32, 37, 41], np.uint8)
+_TELO = np.frombuffer(b"TTAGGG", np.uint8)
+
+
+def bundled_pair(n_pairs: int = 10_000, read_len: int = 100,
+                 seed: int = 2755197, telo_frac: float = 0.58):
+    """(raw1, raw2) FASTQ bytes shaped like the reference's bundled test
+    pair (SURVEY.md §0: 10,000 PE reads x 100 bp per file, IDs
+    ``@ERR2755197.N N length=100``, a bare ``+`` line, N bases at
+    quality '#', and a large telomeric-repeat share that makes about half
+    of the sequences exact duplicates).
+
+    Non-telomeric pairs come from a 2 Mbp structured genome
+    (make_genome) with 250-500 bp inserts, mate 2 reverse-complemented;
+    telomeric pairs are (TTAGGG)n / (CCCTAA)n at a random phase with a
+    few sequencing errors.  Deterministic in ``seed``."""
+    rng = np.random.default_rng(seed)
+    codes, _ = make_genome(2_000_000, seed=seed, n_chrom=2)
+    letters = np.frombuffer(b"ACGTN", np.uint8)
+    comp = np.frombuffer(b"TGCAN", np.uint8)
+    n, L = n_pairs, read_len
+    ins = rng.integers(250, 500, n)
+    pos = rng.integers(0, len(codes) - 500, n)
+    win = np.arange(L)
+    s1 = letters[codes[pos[:, None] + win]]
+    s2 = letters[codes[(pos + ins - L)[:, None] + win]]
+    s2 = comp[_code_of(s2)][:, ::-1]
+    telo = rng.random(n) < telo_frac
+    nt = int(telo.sum())
+    ph = rng.integers(0, 6, (2, nt))
+    t1 = _TELO[(ph[0][:, None] + win) % 6]
+    t2 = comp[_code_of(_TELO)][::-1][(ph[1][:, None] + win) % 6]
+    s1[telo], s2[telo] = t1, t2
+    seqs = np.concatenate([s1, s2])
+    # sequencing errors on ~1 in 6 reads, N calls on ~1 in 50
+    err = rng.random(seqs.shape) < 0.002
+    seqs[err] = letters[rng.integers(0, 4, int(err.sum()))]
+    ncall = (rng.random(seqs.shape) < 0.0002) | (
+        (rng.random(len(seqs)) < 0.02)[:, None] & (win == 0))
+    seqs[ncall] = ord("N")
+    # qualities: per-read level, worse toward the 3' end
+    base = rng.normal(5.2, 0.8, (len(seqs), 1)) - win / (1.6 * L)
+    lvl = np.clip(np.rint(base + rng.normal(0, 0.7, seqs.shape)), 1, 6)
+    quals = _PAIR_QBINS[lvl.astype(np.int64)] + 33
+    quals[ncall] = 35                        # '#'
+    raws = []
+    for m in (0, 1):
+        sq, qu = seqs[m * n:(m + 1) * n], quals[m * n:(m + 1) * n]
+        buf = []
+        for i in range(n):
+            name = b"ERR2755197.%d %d length=%d" % (i + 1, i + 1, L)
+            buf.append(b"@%s\n%s\n+\n%s\n" % (
+                name, sq[i].tobytes(), qu[i].astype(np.uint8).tobytes()))
+        raws.append(b"".join(buf))
+    return raws[0], raws[1]
+
+
+def _code_of(letters_arr: np.ndarray) -> np.ndarray:
+    """ASCII ACGTN -> 0..4."""
+    lut = np.full(256, 4, np.uint8)
+    lut[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4, dtype=np.uint8)
+    return lut[letters_arr]
+
+
+def write_bundled_pair(out_dir: str, **kw):
+    """Write bundled_pair() as ERR2755197_test_{1,2}.fq; returns paths."""
+    os.makedirs(out_dir, exist_ok=True)
+    paths = [os.path.join(out_dir, f"ERR2755197_test_{m}.fq")
+             for m in (1, 2)]
+    for path, raw in zip(paths, bundled_pair(**kw)):
+        with open(path, "wb") as fh:
+            fh.write(raw)
+    return paths
+
+
 def build_fixture(out_dir: str, size_bp: int, n_reads: int,
                   read_len: int = 150, seed: int = 20260820,
                   indel_frac: float = 0.0):
@@ -238,7 +315,9 @@ if __name__ == "__main__":
     ap.add_argument("--reads", type=int, default=200_000)
     ap.add_argument("--read-len", type=int, default=150)
     ap.add_argument("--indel-frac", type=float, default=0.0)
-    ap.add_argument("--out-dir", default="/tmp/fqz_genome")
+    ap.add_argument("--out-dir", default=os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "tmp_genome"))
     a = ap.parse_args()
     fa, fq = build_fixture(a.out_dir, a.mbp * 1_000_000, a.reads,
                            a.read_len, indel_frac=a.indel_frac)

@@ -1,10 +1,12 @@
-"""Mapping-rate + aligner-speed measurement on the bundled reference data
+"""Mapping-rate + aligner-speed measurement on the bundled-pair shape
 (SURVEY.md §8 protocol: synthetic 500 kb reference = first ~5000 read
-sequences concatenated; reference binary maps 8,050/10,000).
+sequences concatenated; on the real pair the reference binary mapped
+8,050/10,000).  Input: the seeded stand-in from genome_fixture.py.
 
 Usage: python tools/maprate.py  (runs on the default JAX device)
 """
 import os
+import sys
 import tempfile
 import time
 
@@ -16,8 +18,6 @@ from fastqueeze_tpu.align.ref import load_fasta
 from fastqueeze_tpu.config import CodecParams
 from fastqueeze_tpu.io.fastq import parse_block
 from fastqueeze_tpu.pipeline.blockcodec import _BASE_MAP
-
-TEST_FQ = "/root/reference/test/ERR2755197_test_1.fq"
 
 
 def synthetic_ref(blk, target=500_000):
@@ -39,7 +39,9 @@ def synthetic_ref(blk, target=500_000):
 
 
 def main():
-    blk = parse_block(open(TEST_FQ, "rb").read(), True)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from genome_fixture import bundled_pair
+    blk = parse_block(bundled_pair()[0], True)
     fa = synthetic_ref(blk)
     p = CodecParams()
     ref = load_fasta(fa)
@@ -59,7 +61,7 @@ def main():
         dt = time.time() - t0
         best = dt if best is None else min(best, dt)
     print(f"align best-of-3 {best:.2f}s  mapped {int(res.mapped.sum())}"
-          f"/{blk.n_reads}  (reference binary: 8050)")
+          f"/{blk.n_reads}")
 
 
 if __name__ == "__main__":

@@ -8,10 +8,19 @@ n_i = occurrences of ctx_i before position i.  (Rescale/cap ignored —
 close enough to rank candidate contexts; the winner gets a real A/B.)
 
 Usage: python tools/qual_ctx_probe.py [file.fq ...]
+(default input: the seeded bundled-pair stand-in, genome_fixture.py)
 """
+import os
 import sys
+import tempfile
 
 import numpy as np
+
+
+def _default_paths():
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from genome_fixture import write_bundled_pair
+    return write_bundled_pair(tempfile.mkdtemp(prefix="fqzpair"))[:1]
 
 
 def load_quals(path):
@@ -64,7 +73,7 @@ def features(flat, lens):
 
 
 def main():
-    paths = sys.argv[1:] or ["/root/reference/test/ERR2755197_test_1.fq"]
+    paths = sys.argv[1:] or _default_paths()
     for path in paths:
         flat, lens = load_quals(path)
         # dense ranks (what the engine codes)
@@ -134,7 +143,7 @@ def frozen_eval(ctx, sym, A, n_rows, init=8, inc=8, cap=0xFFE0):
 
 
 def main_frozen():
-    paths = sys.argv[1:] or ["/root/reference/test/ERR2755197_test_1.fq"]
+    paths = sys.argv[1:] or _default_paths()
     for path in paths:
         flat, lens = load_quals(path)
         vals = np.unique(flat)
