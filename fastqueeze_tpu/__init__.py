@@ -29,38 +29,51 @@ import os as _os
 _REPO_DIR = _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)))
 
 
-def compile_cache_dir(environ=_os.environ):
-    """Directory of the persistent XLA compilation cache, or None when the
-    cache stays off.
+def compile_cache_dir(backend: str, environ=_os.environ):
+    """Directory of the persistent XLA compilation cache for a JAX backend,
+    or None when the cache stays off.
 
     The wave coders compile once per (model, T, L) bucket; the cache lets a
     later process start warm.  JAX_COMPILATION_CACHE_DIR wins when set;
     otherwise a fixed directory inside the checkout (never a temp or home
-    path: the directory is part of what makes a later run hit).  CPU-only
-    runs (tests, --cpu) never cache: XLA:CPU cache entries are AOT machine
-    code stamped with the compiling host's CPU features, and loading one whose
-    feature set mismatches the running host can SIGILL/SIGSEGV instead of
-    falling back to a recompile."""
-    if environ.get("FASTQUEEZE_NO_COMPILE_CACHE"):
-        return None
-    if environ.get("JAX_PLATFORMS", "").strip().lower() == "cpu":
+    path: the directory is part of what makes a later run hit).  A CPU
+    backend (tests, --cpu, a host without a GPU) never caches: XLA:CPU cache
+    entries are AOT machine code stamped with the compiling host's CPU
+    features, and loading one whose feature set mismatches the running host
+    can SIGILL/SIGSEGV instead of falling back to a recompile."""
+    if environ.get("FASTQUEEZE_NO_COMPILE_CACHE") or backend == "cpu":
         return None
     return (environ.get("JAX_COMPILATION_CACHE_DIR")
             or _os.path.join(_REPO_DIR, ".jax_cache"))
 
 
-def _enable_compile_cache() -> None:
+_CACHE_DECIDED = []
+
+
+def enable_compile_cache() -> None:
+    """Turn the persistent cache on once the backend is known to be an
+    accelerator.  The entry points (cli.main, api) call this before their
+    first compile; JAX reads the setting at the process's first compile,
+    so later calls change nothing."""
+    if _CACHE_DECIDED:
+        return
+    _CACHE_DECIDED.append(True)
     import jax
-    cache_dir = compile_cache_dir()
+    cache_dir = compile_cache_dir(jax.default_backend())
     if cache_dir is None:
-        jax.config.update("jax_enable_compilation_cache", False)
         return
     if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
         jax.config.update("jax_compilation_cache_dir", cache_dir)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    jax.config.update("jax_enable_compilation_cache", True)
 
 
-_enable_compile_cache()
+# no platform query at import: the cache stays off (even where
+# JAX_COMPILATION_CACHE_DIR is set) until enable_compile_cache has seen the
+# backend
+import jax as _jax  # noqa: E402
+
+_jax.config.update("jax_enable_compilation_cache", False)
 
 from fastqueeze_tpu.config import CodecParams  # noqa: F401
 from fastqueeze_tpu import api  # noqa: F401  (one-call library surface)

@@ -7,7 +7,7 @@ regime: the counted-CSR index is split into equal-key-count range shards
 over the mesh's devices (parallel/mesh.shard_ref_index, u32 coordinates
 — up to 4 Gbp; tools/bigref_check.py checks positions above 2^31) and
 every batch runs the one-pass multi-seed gapless kernel with pmin/pmax
-lookup collectives (align_blocks_index_sharded — SURVEY.md §2.3's
+lookup collectives (index_sharded_aligner — SURVEY.md §2.3's
 "reference index sharded across devices" north star).
 
 Capability envelope vs the single-chip Aligner: gapless only (no indel
@@ -38,7 +38,8 @@ class ShardedAligner:
     def __init__(self, idx: RefIndex, params: CodecParams, devices=None):
         import jax
 
-        from fastqueeze_tpu.parallel.mesh import make_mesh, shard_ref_index
+        from fastqueeze_tpu.parallel.mesh import (
+            index_sharded_aligner, make_mesh, shard_ref_index)
         devs = devices or jax.devices()
         n = (params.mesh_n if params.mesh_n and params.mesh_n > 0
              else len(devs))
@@ -53,7 +54,9 @@ class ShardedAligner:
         self.ref_len = idx.ref_len
         self.n_shards = n
         self.mesh = make_mesh(n, ctx_shards=n)
-        self.sh = shard_ref_index(idx, n)
+        # the shards go to the devices here, once; batches move only reads
+        self._align_batch = index_sharded_aligner(
+            self.mesh, shard_ref_index(idx, n))
 
     def _lp_bucket(self, max_len: int) -> int:
         lp = 32
@@ -93,7 +96,6 @@ class ShardedAligner:
                 res.is_rev[sel] = sub.is_rev
                 res.mis_mask[sel] = sub.mis_mask
             return res
-        from fastqueeze_tpu.parallel.mesh import align_blocks_index_sharded
         lp = self._lp_bucket(max_len)
         codes_g, dege_g = _gridify(codes_flat, dege_flat, lengths, lp)
         mapped = np.zeros(R, bool)
@@ -109,10 +111,9 @@ class ShardedAligner:
             lb = np.zeros(B, np.int64)
             cb[:n], db[:n] = codes_g[s:s + n], dege_g[s:s + n]
             lb[:n] = lengths[s:s + n]
-            out = align_blocks_index_sharded(
-                self.mesh, p, self.sh, cb, db, lb,
-                n_seeds=p.rescue_seeds, excl_bp=p.seed_excl_bp,
-                n_cand=p.seed_max_occ)
+            out = self._align_batch(
+                p, cb, db, lb, n_seeds=p.rescue_seeds,
+                excl_bp=p.seed_excl_bp, n_cand=p.seed_max_occ)
             jobs.append((s, n, out))
         for s, n, (m, p_, r, mm) in jobs:
             sl = slice(s, s + n)

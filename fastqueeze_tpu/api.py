@@ -22,6 +22,7 @@ from __future__ import annotations
 import os
 from typing import Dict, List, Optional, Sequence, Union
 
+from fastqueeze_tpu import enable_compile_cache
 from fastqueeze_tpu.config import CodecParams
 
 Inputs = Union[str, Sequence[str]]
@@ -55,6 +56,7 @@ def compress(inputs: Inputs, out_path: str, *,
     :func:`merge`).  Returns the driver's stats dict (raw/compressed
     bytes, ratio, blocks, ...).
     """
+    enable_compile_cache()
     if part is not None:
         if not (0 <= part[0] < part[1] <= 0xFFFFFFFF):
             raise ValueError(
@@ -108,6 +110,7 @@ def decompress(archive: str, out_prefix: str, *,
     """Restore the original FASTQ file(s) from an archive (bit-exact;
     verified against the stored MD5s).  Returns the written paths.
     Aligned archives need the same reference FASTA (checked by MD5)."""
+    enable_compile_cache()
     from fastqueeze_tpu.pipeline.driver import decompress as _d
     kw = {"force": force}
     if threads is not None:
@@ -122,6 +125,7 @@ def extract(archive: str, start: int, count: int, out_prefix: str, *,
             ) -> List[str]:
     """Random-access extraction: decode only the blocks covering reads
     (SE) / pairs (PE) [start, start+count) — the CLI's `-X`."""
+    enable_compile_cache()
     from fastqueeze_tpu.pipeline.driver import extract as _x
     kw = {"force": force}
     if reference is not None:
@@ -152,5 +156,6 @@ def build_index(reference: str,
                 params: Optional[CodecParams] = None) -> str:
     """Build (or refresh) the seed index for a reference FASTA; returns
     the index path.  compress(reference=...) calls this implicitly."""
+    enable_compile_cache()
     from fastqueeze_tpu.align.index import build_index as _b
     return _b(reference, _params(params))

@@ -201,62 +201,60 @@ def shard_ref_index(idx, n_shards: int) -> Dict[str, np.ndarray]:
             "ref_len": idx.ref_len, "k": idx.k, "kp": kp}
 
 
-def align_blocks_index_sharded(mesh: Mesh, params: CodecParams, sh: Dict,
-                               codes: np.ndarray, dege: np.ndarray,
-                               lengths: np.ndarray,
-                               n_seeds: int = 1, excl_bp: int = 0,
-                               n_cand: Optional[int] = None):
+def index_sharded_aligner(mesh: Mesh, sh: Dict):
     """Alignment with the k-mer index sharded over the 'ctx' mesh axis and
     reads data-parallel over 'block' (SURVEY.md §2.3 north star: reference
     index sharded across the devices).
 
-    codes/dege: (R, Lp) grids; R must divide by the block axis.  Lookups
-    run as local binary searches combined with pmin/pmax over 'ctx';
-    every ctx shard then verifies its slice of the candidate list against
-    the replicated packed reference (work scales down with shards)."""
+    Places the index shards of ``sh`` (shard_ref_index) on the mesh once
+    and returns ``align(params, codes, dege, lengths, n_seeds=1,
+    excl_bp=0, n_cand=None)``; per call only the reads move, and the
+    program compiles once per (AlignConfig, grid shape).  codes/dege:
+    (R, Lp) grids; R must divide by the block axis.  Lookups run as local
+    binary searches combined with pmin/pmax over 'ctx'; every ctx shard
+    then verifies its slice of the candidate list against the replicated
+    packed reference (work scales down with shards)."""
     from fastqueeze_tpu.align import hash as H
     import math
-    R, lp = codes.shape
+    k, ref_len = sh["k"], int(sh["ref_len"])
+    search_steps = max(1, math.ceil(math.log2(sh["kp"] + 1)))
     nb = mesh.shape["block"]
-    if R % nb:
-        raise ValueError(f"R={R} not divisible by block axis {nb}")
-    kp = sh["kp"]
-    cfg = H.AlignConfig(
-        k=sh["k"], stride=params.seed_stride,
-        n_cand=n_cand or params.seed_max_occ, max_mis=params.max_mis,
-        both_strands=params.both_strands, lp=lp, n_seeds=n_seeds,
-        excl_bp=excl_bp, wide=sh["k"] > 15,
-        search_steps=max(1, math.ceil(math.log2(kp + 1))),
-        shard_axis="ctx")
-    # the index shards go to the devices once per mesh and the program is
-    # built once per (mesh, cfg, ref_len): per batch only reads move
-    dev = sh.setdefault("_dev", {})
-    if mesh not in dev:
-        ctx, rep = NamedSharding(mesh, P("ctx")), NamedSharding(mesh, P())
-        dev[mesh] = tuple(jax.device_put(sh[k], ctx) for k in (
-            "keys_hi", "keys_lo", "offsets", "positions")) + (
-            jax.device_put(sh["packed"], rep),)
-    return _index_sharded_fn(mesh, cfg, int(sh["ref_len"]))(
-        *dev[mesh], jnp.asarray(codes), jnp.asarray(dege),
-        jnp.asarray(lengths.astype(np.int32)))
+    ctx, rep = NamedSharding(mesh, P("ctx")), NamedSharding(mesh, P())
+    dev = tuple(jax.device_put(sh[name], ctx) for name in (
+        "keys_hi", "keys_lo", "offsets", "positions")) + (
+        jax.device_put(sh["packed"], rep),)
 
+    @functools.partial(jax.jit, static_argnums=0)
+    def run(cfg, *args):
+        def local(kh, kl, off, pos, pk, c, d, ln):
+            return H._align_batch.__wrapped__(
+                cfg, (kh[0], kl[0]), off[0], pos[0], pk,
+                jnp.zeros(1, jnp.int32), jnp.uint32(ref_len), c, d, ln)
 
-@functools.lru_cache(maxsize=None)
-def _index_sharded_fn(mesh: Mesh, cfg, ref_len: int):
-    from fastqueeze_tpu.align import hash as H
+        return shard_map(
+            local, mesh=mesh,
+            in_specs=(P("ctx"), P("ctx"), P("ctx"), P("ctx"), P(),
+                      P("block"), P("block"), P("block")),
+            out_specs=(P("block"), P("block"), P("block"), P("block")),
+            check_vma=False,
+        )(*args)
 
-    def local(kh, kl, off, pos, pk, c, d, ln):
-        return H._align_batch.__wrapped__(
-            cfg, (kh[0], kl[0]), off[0], pos[0], pk,
-            jnp.zeros(1, jnp.int32), jnp.uint32(ref_len), c, d, ln)
+    def align(params: CodecParams, codes: np.ndarray, dege: np.ndarray,
+              lengths: np.ndarray, n_seeds: int = 1, excl_bp: int = 0,
+              n_cand: Optional[int] = None):
+        R, lp = codes.shape
+        if R % nb:
+            raise ValueError(f"R={R} not divisible by block axis {nb}")
+        cfg = H.AlignConfig(
+            k=k, stride=params.seed_stride,
+            n_cand=n_cand or params.seed_max_occ, max_mis=params.max_mis,
+            both_strands=params.both_strands, lp=lp, n_seeds=n_seeds,
+            excl_bp=excl_bp, wide=k > 15, search_steps=search_steps,
+            shard_axis="ctx")
+        return run(cfg, *dev, jnp.asarray(codes), jnp.asarray(dege),
+                   jnp.asarray(lengths.astype(np.int32)))
 
-    return jax.jit(shard_map(
-        local, mesh=mesh,
-        in_specs=(P("ctx"), P("ctx"), P("ctx"), P("ctx"), P(),
-                  P("block"), P("block"), P("block")),
-        out_specs=(P("block"), P("block"), P("block"), P("block")),
-        check_vma=False,
-    ))
+    return align
 
 
 def decode_blocks_frozen_sharded(mesh: Mesh, model: CtxModel,

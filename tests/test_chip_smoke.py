@@ -37,7 +37,7 @@ def test_phase_codec_se_frozen_and_extract(tiny_inputs):
     rec = chip_smoke.phase_codec("a", [inp["se"]], work, 7_000,
                                  routes=ROUTES, extract=True,
                                  flags=["--block-mb", "1"])
-    assert rec["device compress cold"]["compiles"] > 0
+    assert rec["device compress cold"]["programs"] > 0
     assert "host extract warm" in rec
 
 
@@ -55,6 +55,42 @@ def test_phase_aligned(tiny_inputs):
     rec = chip_smoke.phase_aligned(inp["fa"], inp["align"], work, 600,
                                    routes=ROUTES)
     assert "device compress fused-align" in rec
+
+
+def test_phase_mesh_four_devices(tiny_inputs):
+    """--cards 4 phase on four of the virtual CPU devices: mesh payloads
+    equal the one-device archive's, mesh and ctx-sharded decode exact."""
+    work, inp = tiny_inputs
+    rec = chip_smoke.phase_mesh(inp["se"], work, 7_000, 4,
+                                flags=["--block-mb", "1"])
+    assert rec["device compress mesh cold"]["programs"] > 0
+
+
+def test_phase_sharded_index_four_devices(tiny_inputs, monkeypatch):
+    import jax
+    monkeypatch.setattr(jax, "devices", lambda *a: jax.local_devices()[:4])
+    work, inp = tiny_inputs
+    rec = chip_smoke.phase_sharded_index(inp["fa"], inp["align"], work, 600)
+    assert rec["device compress sharded cold"]["programs"] > 0
+    # the shards are placed and the batch program built once per aligner
+    assert rec["device compress sharded warm"]["programs"] == 0
+
+
+def test_default_route_unsets_placement_overrides(monkeypatch):
+    """The device route runs with the placement overrides removed, so an
+    override left in the environment cannot turn it into a host route."""
+    for var in chip_smoke.HOST_ROUTE:
+        monkeypatch.setenv(var, "host")
+    with chip_smoke._env(chip_smoke.DEFAULT_ROUTE):
+        assert not any(v in os.environ for v in chip_smoke.HOST_ROUTE)
+    assert all(os.environ[v] == "host" for v in chip_smoke.HOST_ROUTE)
+
+
+def test_phase_fails_when_no_device_program_ran():
+    rec = {"device compress warm": {"programs": 0},
+           "host compress cold": {"programs": 3}}
+    with pytest.raises(RuntimeError, match="no device program"):
+        chip_smoke._check_device_ran("x", rec)
 
 
 def test_counts_scale_cuts_reads_only(capsys):

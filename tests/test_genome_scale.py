@@ -93,7 +93,7 @@ def test_q_tier_maps_indel_reads(fixture, tmp_path):
 
 
 def test_index_sharded_matches_local_on_genome(fixture):
-    """align_blocks_index_sharded on the structured-repeat fixture (not a
+    """index_sharded_aligner on the structured-repeat fixture (not a
     uniform-random toy): same mapping decisions as the local kernel."""
     import jax.numpy as jnp
 
@@ -101,7 +101,7 @@ def test_index_sharded_matches_local_on_genome(fixture):
     from fastqueeze_tpu.align.index import build_from_ref
     from fastqueeze_tpu.align.ref import load_fasta
     from fastqueeze_tpu.parallel.mesh import (
-        align_blocks_index_sharded, make_mesh, shard_ref_index)
+        index_sharded_aligner, make_mesh, shard_ref_index)
     ref = load_fasta(fixture["fa"])
     p = CodecParams(seed_max_occ=32)
     idx = build_from_ref(ref, p)
@@ -136,8 +136,7 @@ def test_index_sharded_matches_local_on_genome(fixture):
 
     mesh = make_mesh(8, ctx_shards=4)
     sh = shard_ref_index(idx, 4)
-    m, pos, rev, mm = align_blocks_index_sharded(mesh, p, sh, cg, dg,
-                                                 lengths)
+    m, pos, rev, mm = index_sharded_aligner(mesh, sh)(p, cg, dg, lengths)
     assert np.array_equal(np.asarray(m), lm)
     assert np.array_equal(np.asarray(mm).sum(axis=1),
                           np.asarray(lmm).sum(axis=1))

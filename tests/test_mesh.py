@@ -167,7 +167,7 @@ def test_index_sharded_alignment_matches_local():
     from fastqueeze_tpu.align.ref import RefSeq, pack_2bit
     from fastqueeze_tpu.config import CodecParams
     from fastqueeze_tpu.parallel.mesh import (
-        align_blocks_index_sharded, make_mesh, shard_ref_index)
+        index_sharded_aligner, make_mesh, shard_ref_index)
 
     rng = np.random.default_rng(21)
     ref_codes = rng.integers(0, 4, 20000).astype(np.uint8)
@@ -210,8 +210,7 @@ def test_index_sharded_alignment_matches_local():
 
     mesh = make_mesh(8, ctx_shards=4)
     sh = shard_ref_index(idx, 4)
-    m, pos, rev, mm = align_blocks_index_sharded(
-        mesh, p, sh, cg, dg, lengths)
+    m, pos, rev, mm = index_sharded_aligner(mesh, sh)(p, cg, dg, lengths)
     m = np.asarray(m)
     assert np.array_equal(m, lm)
     # positions may differ on equal-mismatch ties; mismatch counts and

@@ -69,15 +69,50 @@ def test_default_placement(monkeypatch, router, backend, mesh, override):
     assert _route(router, CodecParams(**kw)) is want
 
 
-@pytest.mark.parametrize("env,want", [
-    ({"JAX_COMPILATION_CACHE_DIR": "/cache/x"}, "/cache/x"),
-    ({}, os.path.join(os.path.dirname(os.path.dirname(
+@pytest.mark.parametrize("backend,env,want", [
+    ("gpu", {"JAX_COMPILATION_CACHE_DIR": "/cache/x"}, "/cache/x"),
+    ("gpu", {}, os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(fastqueeze_tpu.__file__))), ".jax_cache")),
-    ({"JAX_PLATFORMS": "cpu", "JAX_COMPILATION_CACHE_DIR": "/cache/x"},
-     None),
-    ({"FASTQUEEZE_NO_COMPILE_CACHE": "1"}, None),
+    ("cpu", {"JAX_COMPILATION_CACHE_DIR": "/cache/x"}, None),
+    ("cpu", {}, None),
+    ("gpu", {"FASTQUEEZE_NO_COMPILE_CACHE": "1"}, None),
 ])
-def test_compile_cache_dir(env, want):
+def test_compile_cache_dir(backend, env, want):
     """JAX_COMPILATION_CACHE_DIR wins; otherwise a fixed directory inside
-    the checkout; CPU-only runs keep the cache off."""
-    assert fastqueeze_tpu.compile_cache_dir(env) == want
+    the checkout; a CPU backend keeps the cache off."""
+    assert fastqueeze_tpu.compile_cache_dir(backend, env) == want
+
+
+def test_cli_enables_cache_before_its_first_compile(tmp_path):
+    """cli.main decides the cache from the backend before anything
+    compiles, so on an accelerator the cache holds the run's programs.
+    Run in a child with the backend reported as 'gpu' (the programs still
+    compile for the CPU) and the cache pointed into tmp_path."""
+    import subprocess
+    import sys
+    fq = tmp_path / "r.fq"
+    fq.write_bytes(b"".join(b"@r%d\n%s\n+\n%s\n" % (i, b"ACGT" * 25, b"F" * 100)
+                            for i in range(200)))
+    cache = tmp_path / "cache"
+    code = (
+        "import jax, sys; jax.default_backend = lambda: 'gpu'\n"
+        "import fastqueeze_tpu as f\n"
+        "decide = f.enable_compile_cache\n"
+        "def enable():\n"
+        "    decide()   # then keep even sub-second compiles\n"
+        "    jax.config.update("
+        "'jax_persistent_cache_min_compile_time_secs', 0)\n"
+        "f.enable_compile_cache = enable\n"
+        "import fastqueeze_tpu.cli as c\n"
+        "import fastqueeze_tpu.ops.host_frozen as h\n"
+        "h.auto_host = lambda p: False\n"
+        "sys.exit(c.main(['-c', '-1', sys.argv[1], '-o', sys.argv[2], "
+        "'-f']))\n")
+    env = {k: v for k, v in os.environ.items()
+           if k != "FASTQUEEZE_NO_COMPILE_CACHE"}
+    env["JAX_COMPILATION_CACHE_DIR"] = str(cache)
+    r = subprocess.run([sys.executable, "-c", code, str(fq),
+                        str(tmp_path / "r.fqz")], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert cache.is_dir() and any(cache.iterdir())

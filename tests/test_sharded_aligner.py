@@ -85,6 +85,44 @@ def test_sharded_aligner_longreads(tmp_path, forced_shard):
             == hashlib.md5(fq.read_bytes()).digest())
 
 
+def test_sharded_aligner_compiles_once_across_batches(monkeypatch):
+    """The index shards are placed once per aligner and the batch program
+    compiles once: later batches of the same shape compile nothing."""
+    import jax
+
+    from fastqueeze_tpu.align.index import build_from_ref
+    from fastqueeze_tpu.align.ref import RefSeq
+    from genome_fixture import _code_of
+    codes, _bounds = make_genome(200_000, seed=7)
+    ref = RefSeq(codes=codes, amb_mask=np.zeros(len(codes), bool),
+                 names=["c"], bounds=np.array([0, len(codes)]), md5="")
+    p = CodecParams(threads=1)
+    al = sharded.ShardedAligner(build_from_ref(ref, p), p,
+                                devices=jax.devices()[:4])
+    monkeypatch.setattr(al, "BATCH", 128)
+    seqs, _q = sample_reads(codes, 3 * 128, 150, np.random.default_rng(8))
+    lengths = np.full(len(seqs), 150, np.int64)
+    read_codes = _code_of(seqs).reshape(-1)
+    dege = read_codes > 3
+    flat = np.minimum(read_codes, 3)
+    compiles = []
+
+    def on_event(event, _secs, **_kw):
+        if event == "/jax/core/compile/backend_compile_duration":
+            compiles.append(event)
+
+    jax.monitoring.register_event_duration_secs_listener(on_event)
+    try:
+        first = al.align(flat, dege, lengths)
+        n_first = len(compiles)
+        again = al.align(flat, dege, lengths)
+    finally:
+        jax.monitoring.unregister_event_duration_listener(on_event)
+    assert n_first > 0 and len(compiles) == n_first
+    assert first.mapped.mean() > 0.8
+    np.testing.assert_array_equal(first.pos, again.pos)
+
+
 def test_sharded_aligner_needs_mesh(monkeypatch):
     """A big index with one visible device fails with guidance."""
     from fastqueeze_tpu.align.index import RefIndex

@@ -40,7 +40,7 @@ def main() -> None:
     from fastqueeze_tpu.align.index import build_from_ref
     from fastqueeze_tpu.align.ref import RefSeq
     from fastqueeze_tpu.config import CodecParams
-    from fastqueeze_tpu.parallel.mesh import (align_blocks_index_sharded,
+    from fastqueeze_tpu.parallel.mesh import (index_sharded_aligner,
                                               make_mesh, shard_ref_index)
 
     G = 2_200_000_000                      # > 2^31 windows
@@ -84,8 +84,7 @@ def main() -> None:
 
     mesh = make_mesh(8, ctx_shards=4)
     t0 = time.time()
-    m, pos, rev, mm = align_blocks_index_sharded(mesh, p, sh, cg, dg,
-                                                 lengths)
+    m, pos, rev, mm = index_sharded_aligner(mesh, sh)(p, cg, dg, lengths)
     m = np.asarray(m)
     pos = np.asarray(pos).astype(np.uint32).astype(np.int64)
     out["align_s"] = round(time.time() - t0, 1)
